@@ -6,7 +6,7 @@
 all: native
 
 native:
-	$(MAKE) -C sparsebench_tpu/native
+	$(MAKE) -C sparsebench/native
 
 test:
 	python -m pytest tests/ -x -q
@@ -16,18 +16,18 @@ test:
 # errors in environments without ruff (like the dev image).
 lint:
 	@if command -v ruff >/dev/null 2>&1; then \
-		ruff check sparsebench_tpu tests tools bench.py \
+		ruff check sparsebench tests tools bench.py \
 			__graft_entry__.py; \
 	else \
 		echo "ruff not installed; falling back to compileall"; \
-		python -m compileall -q sparsebench_tpu tests tools bench.py \
+		python -m compileall -q sparsebench tests tools bench.py \
 			__graft_entry__.py; \
 	fi
 
 format:
 	@command -v ruff >/dev/null 2>&1 || { echo "ruff not installed"; exit 1; }
-	ruff check --fix sparsebench_tpu tests tools bench.py __graft_entry__.py
-	ruff format sparsebench_tpu tests tools bench.py __graft_entry__.py
+	ruff check --fix sparsebench tests tools bench.py __graft_entry__.py
+	ruff format sparsebench tests tools bench.py __graft_entry__.py
 
 # reference `make asm` analog (Makefile:26-30): dump lowered + optimized
 # HLO for the hot solves into build/asm/
@@ -35,4 +35,4 @@ asm:
 	python tools/dump_hlo.py
 
 clean:
-	$(MAKE) -C sparsebench_tpu/native clean
+	$(MAKE) -C sparsebench/native clean

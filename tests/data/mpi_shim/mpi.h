@@ -2,7 +2,7 @@
  *
  * Just enough surface for the reference's src/matrixBinfile.c to compile
  * and run serially (this image has no MPI), so its ACTUAL .bmx write/read
- * code — not a re-implementation — cross-validates sparsebench_tpu's
+ * code — not a re-implementation — cross-validates sparsebench's
  * byte-compatible host/binfile.py (tests/test_reference_parity.py).
  *
  * Semantics implemented (the subset matrixBinfile.c exercises):

@@ -11,10 +11,10 @@ import pytest
 
 import jax
 
-from sparsebench_tpu.formats import from_csr
-from sparsebench_tpu.host import HostCSR, generate_stencil
-from sparsebench_tpu.solvers.bicgstab import solve_bicgstab
-from sparsebench_tpu.solvers.cg import check_residual, init_vectors
+from sparsebench.formats import from_csr
+from sparsebench.host import HostCSR, generate_stencil
+from sparsebench.solvers.bicgstab import solve_bicgstab
+from sparsebench.solvers.cg import check_residual, init_vectors
 
 jax.config.update("jax_enable_x64", True)
 
@@ -97,12 +97,12 @@ def test_bicgstab_permuted_format():
 
 
 def test_dist_bicgstab_matches_serial():
-    from sparsebench_tpu.host.coo import COOMatrix
-    from sparsebench_tpu.parallel.dist import (
+    from sparsebench.host.coo import COOMatrix
+    from sparsebench.parallel.dist import (
         build_distributed,
         dist_solve_bicgstab,
     )
-    from sparsebench_tpu.parallel.partition import slice_coo_rows
+    from sparsebench.parallel.partition import slice_coo_rows
 
     csr, rng = _nonsym(4, 4, 4, seed=7)
     rows = np.repeat(np.arange(csr.nr, dtype=np.int64), csr.row_lengths)
@@ -162,13 +162,13 @@ def test_dist_bicgstab_bf16_matches_serial_upcast():
     straight into the loop and diverged from the serial answer)."""
     import jax.numpy as jnp
 
-    from sparsebench_tpu.config import DTypePolicy
-    from sparsebench_tpu.host.coo import COOMatrix
-    from sparsebench_tpu.parallel.dist import (
+    from sparsebench.config import DTypePolicy
+    from sparsebench.host.coo import COOMatrix
+    from sparsebench.parallel.dist import (
         build_distributed,
         dist_solve_bicgstab,
     )
-    from sparsebench_tpu.parallel.partition import slice_coo_rows
+    from sparsebench.parallel.partition import slice_coo_rows
 
     pol = DTypePolicy.from_names("bf16", "i32")
     csr = generate_stencil(8, 8, 8)
@@ -190,7 +190,7 @@ def test_dist_bicgstab_bf16_matches_serial_upcast():
 
 @pytest.mark.parametrize("sharded", [False, True])
 def test_bicgstab_cli(capsys, sharded):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     argv = ["-t", "bicgstab", "-x", "5", "-y", "5", "-z", "4", "-i", "60",
             "-e", "1e-8"]

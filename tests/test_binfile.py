@@ -3,8 +3,8 @@
 
 import numpy as np
 
-from sparsebench_tpu.host import HostCSR, generate_stencil, read_mm
-from sparsebench_tpu.host.binfile import (
+from sparsebench.host import HostCSR, generate_stencil, read_mm
+from sparsebench.host.binfile import (
     HEADER,
     HEADER_SIZE,
     rank_row_range,

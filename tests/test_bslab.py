@@ -1,6 +1,5 @@
 """BSLAB (slab-table) format tests: layout correctness against the CSR
-oracle across builders (host CSR, analytic stencil) and kernel paths
-(xla, pallas interpret, windowed interpret)."""
+oracle across builders (host CSR, analytic stencil) and slice heights."""
 
 import numpy as np
 import pytest
@@ -8,11 +7,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sparsebench_tpu.config import DTypePolicy
-from sparsebench_tpu.formats import from_csr
-from sparsebench_tpu.formats.bslab import BslabMatrix
-from sparsebench_tpu.host import HostCSR, generate_stencil, read_mm
-from sparsebench_tpu.solvers.cg import check_residual, init_vectors, solve_cg
+from sparsebench.config import DTypePolicy
+from sparsebench.formats import from_csr
+from sparsebench.formats.bslab import BslabMatrix
+from sparsebench.host import HostCSR, generate_stencil, read_mm
+from sparsebench.solvers.cg import check_residual, init_vectors, solve_cg
 
 jax.config.update("jax_enable_x64", True)
 
@@ -27,7 +26,7 @@ def random_csr(nr, nc, density, seed, band=None):
         j = np.arange(nc)[None, :]
         mask &= np.abs(i - j) <= band
     dense = np.where(mask, rng.standard_normal((nr, nc)), 0.0)
-    from sparsebench_tpu.host.coo import COOMatrix
+    from sparsebench.host.coo import COOMatrix
 
     r, c = np.nonzero(dense)
     return HostCSR.from_coo(
@@ -45,12 +44,11 @@ CASES = [
 
 
 @pytest.mark.parametrize("name,make", CASES, ids=[c[0] for c in CASES])
-@pytest.mark.parametrize("impl", ["xla", "pallas_interpret",
-                                  "pallas_win_interpret"])
-def test_bslab_spmv_matches_csr(name, make, impl):
+@pytest.mark.parametrize("sub", [8, 16, 64])
+def test_bslab_spmv_matches_csr(name, make, sub):
     out = make()
     csr = out[0] if isinstance(out, tuple) else out
-    A = BslabMatrix.from_csr(csr, F32, impl=impl)
+    A = BslabMatrix.from_csr(csr, F32, sub=sub)
     rng = np.random.default_rng(42)
     x = rng.standard_normal(csr.nc).astype(np.float32)
     y = np.asarray(jax.jit(lambda A, x: A.spmv(x))(A, jnp.asarray(x)))
@@ -64,7 +62,7 @@ def test_bslab_spmv_matches_csr(name, make, impl):
 def test_bslab_sub_heights_match_csr(sub):
     """Explicit slice heights (the perf lever) keep exactness."""
     csr, _ = random_csr(2100, 2100, 0.004, 7)
-    A = BslabMatrix.from_csr(csr, F32, impl="pallas_win_interpret", sub=sub)
+    A = BslabMatrix.from_csr(csr, F32, sub=sub)
     assert A.sub == sub
     x = np.random.default_rng(0).standard_normal(csr.nc).astype(np.float32)
     y = np.asarray(jax.jit(lambda A, x: A.spmv(x))(A, jnp.asarray(x)))
@@ -74,7 +72,7 @@ def test_bslab_sub_heights_match_csr(sub):
 
 def test_bslab_uncompressed_matches_exactly():
     csr, _ = random_csr(300, 300, 0.02, 5)
-    A = BslabMatrix.from_csr(csr, F32, impl="xla", compress=False)
+    A = BslabMatrix.from_csr(csr, F32, compress=False)
     x = np.random.default_rng(0).standard_normal(csr.nc).astype(np.float32)
     y = np.asarray(A.spmv(jnp.asarray(x)))
     want = csr.spmv(x.astype(np.float64))
@@ -87,7 +85,7 @@ def test_bslab_separated_diagonals_classify_affine():
     (Dense multi-diagonal buckets legitimately classify general: the j-th
     occupant of a bucket varies per lane near boundaries.)"""
     n = 400
-    from sparsebench_tpu.host.coo import COOMatrix
+    from sparsebench.host.coo import COOMatrix
 
     rows = np.arange(n)
     r2 = rows[rows + 200 < n]
@@ -107,8 +105,8 @@ def test_bslab_separated_diagonals_classify_affine():
 
 def test_bslab_from_stencil_matches_csr_build():
     csr = generate_stencil(6, 5, 9)  # > 1 tile (270 rows... pad to 1024)
-    A_dev, counts = BslabMatrix.from_stencil(6, 5, 9, policy=F32, impl="xla")
-    A_host = BslabMatrix.from_csr(csr, F32, impl="xla")
+    A_dev, counts = BslabMatrix.from_stencil(6, 5, 9, policy=F32)
+    A_host = BslabMatrix.from_csr(csr, F32)
     assert A_dev.nnz == csr.nnz
     np.testing.assert_array_equal(np.asarray(counts), csr.row_lengths)
     x = np.random.default_rng(1).standard_normal(csr.nr).astype(np.float32)
@@ -123,8 +121,8 @@ def test_bslab_from_stencil_matches_csr_build():
 def test_bslab_from_stencil_multi_tile_interpret():
     nx, ny, nz = 8, 8, 20  # 1280 rows -> 2 tiles
     csr = generate_stencil(nx, ny, nz)
-    A, _ = BslabMatrix.from_stencil(nx, ny, nz, policy=F32,
-                                    impl="pallas_win_interpret")
+    A, _ = BslabMatrix.from_stencil(nx, ny, nz, policy=F32, sub=8)
+    assert A.n_tiles == 2
     x = np.random.default_rng(3).standard_normal(csr.nr).astype(np.float32)
     y = np.asarray(A.spmv(jnp.asarray(x)))
     want = csr.spmv(x.astype(np.float64))
@@ -141,27 +139,28 @@ def test_bslab_cg_converges():
 
 def test_bslab_band_klein(data_dir):
     csr = HostCSR.from_coo(read_mm(str(data_dir / "matrix_band_klein.mtx")))
-    A = BslabMatrix.from_csr(csr, F32, impl="xla")
+    A = BslabMatrix.from_csr(csr, F32)
     x = np.ones(csr.nc, np.float32)
     y = np.asarray(A.spmv(jnp.asarray(x)))
     want = csr.spmv(np.ones(csr.nc))
     assert np.abs(y - want).max() < 1e-3
 
 
-def test_bslab_impl_validation():
+@pytest.mark.parametrize("sub", [4, 12, 0 - 8])
+def test_bslab_rejects_bad_sub(sub):
     csr = generate_stencil(3, 3, 3)
-    with pytest.raises(ValueError, match="unknown bslab impl"):
-        BslabMatrix.from_csr(csr, F32, impl="palas")
+    with pytest.raises(ValueError, match="sub must be"):
+        BslabMatrix.from_csr(csr, F32, sub=sub)
 
 
 def test_bslab_empty_matrix():
-    from sparsebench_tpu.host.coo import COOMatrix
+    from sparsebench.host.coo import COOMatrix
 
     csr = HostCSR.from_coo(
         COOMatrix(row=np.zeros(0, np.int64), col=np.zeros(0, np.int64),
                   val=np.zeros(0), nr=10, nc=10)
     )
-    A = BslabMatrix.from_csr(csr, F32, impl="xla")
+    A = BslabMatrix.from_csr(csr, F32)
     y = np.asarray(A.spmv(jnp.ones(10, jnp.float32)))
     assert np.all(y == 0)
 
@@ -175,9 +174,9 @@ def test_bslab_padding_ratio_reasonable_on_stencil():
 def test_bslab_distributed_cg_matches_serial():
     """Sharded bslab: stacked shard pytrees (forced uniform slice counts
     + one chunk plan) reproduce the serial residual history."""
-    from sparsebench_tpu.host.coo import COOMatrix
-    from sparsebench_tpu.parallel.dist import build_distributed, dist_solve_cg
-    from sparsebench_tpu.parallel.partition import slice_coo_rows
+    from sparsebench.host.coo import COOMatrix
+    from sparsebench.parallel.dist import build_distributed, dist_solve_cg
+    from sparsebench.parallel.partition import slice_coo_rows
 
     gcsr = generate_stencil(5, 5, 5)
     rows = np.repeat(np.arange(gcsr.nr), gcsr.row_lengths)
@@ -200,14 +199,14 @@ def test_bslab_distributed_cg_matches_serial():
 def test_bslab_unsorted_rows_guard():
     """Columns unsorted within a row must not collapse entries (builder
     sorts defensively)."""
-    from sparsebench_tpu.host.coo import COOMatrix
+    from sparsebench.host.coo import COOMatrix
 
     rows = np.array([0, 0, 0, 1, 1])
     cols = np.array([5, 2, 9, 7, 3])
     vals = np.array([1.0, 2.0, 3.0, 4.0, 5.0])
     row_ptr = np.array([0, 3, 5])
     csr = HostCSR(row_ptr=row_ptr, col=cols, val=vals, nr=2, nc=12)
-    A = BslabMatrix.from_csr(csr, F32, impl="xla")
+    A = BslabMatrix.from_csr(csr, F32)
     x = np.arange(12, dtype=np.float32)
     y = np.asarray(A.spmv(jnp.asarray(x)))
     want = np.array([1 * 5 + 2 * 2 + 3 * 9, 4 * 7 + 5 * 3], np.float64)

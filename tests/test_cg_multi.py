@@ -12,10 +12,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sparsebench_tpu.formats import from_csr
-from sparsebench_tpu.host import generate_stencil
-from sparsebench_tpu.solvers.cg import check_residual, init_vectors, solve_cg
-from sparsebench_tpu.solvers.cg_multi import make_spmm, solve_cg_multi
+from sparsebench.formats import from_csr
+from sparsebench.host import generate_stencil
+from sparsebench.solvers.cg import check_residual, init_vectors, solve_cg
+from sparsebench.solvers.cg_multi import make_spmm, solve_cg_multi
 
 jax.config.update("jax_enable_x64", True)
 
@@ -56,12 +56,11 @@ def test_spmm_sell_permuted_space():
 
 
 def test_spmm_vmap_over_pallas():
-    """ADVICE r4: the make_spmm fallback vmaps the format's single-vector
-    spmv; for pallas-backed formats the vmap adds a batch grid dimension.
-    Exercise that exact lowering in interpret mode (bslab is the format
-    the CLI pairs with --nrhs on TPU) against per-column spmv."""
+    """The make_spmm fallback vmaps the format's single-vector spmv (bslab
+    has no native multi-RHS product): every column must equal its own
+    spmv."""
     csr = generate_stencil(6, 5, 4, dtype=np.float32)
-    A = from_csr("bslab", csr, impl="pallas_interpret")
+    A = from_csr("bslab", csr)
     B = _rhs_block(csr, k=3).astype(np.float32)
     spmm = make_spmm(A)
     got = np.asarray(spmm(jnp.asarray(B)))
@@ -72,15 +71,16 @@ def test_spmm_vmap_over_pallas():
 
 
 def test_spmm_kn_pallas_dia_matches_oracle():
-    """The native multi-RHS DIA kernel (ops/dia_pallas.py
-    _dia_kernel_mrhs, grid (tiles, k) column-innermost) against the CSR
-    oracle and the XLA spmm_kn path, in interpret mode."""
+    """DIA's native multi-RHS product (one pass per diagonal over the
+    (k, n) slab) against the CSR oracle, with bf16-compressed and with
+    f32 diagonals."""
     csr = generate_stencil(8, 7, 5, dtype=np.float32)
-    from sparsebench_tpu.config import DTypePolicy
+    from sparsebench.config import DTypePolicy
 
     pol = DTypePolicy.from_names("f32", "i32")
-    Ap = from_csr("dia", csr, pol, impl="pallas_interpret")
-    Ax = from_csr("dia", csr, pol, impl="xla")
+    Ap = from_csr("dia", csr, pol)
+    Ax = from_csr("dia", csr, pol, compress=False)
+    assert Ap.data.dtype == jnp.bfloat16 and Ax.data.dtype == jnp.float32
     rng = np.random.default_rng(5)
     Xkn = rng.standard_normal((4, csr.nr)).astype(np.float32)
     got = np.asarray(Ap.spmm_kn(jnp.asarray(Xkn)))
@@ -88,9 +88,9 @@ def test_spmm_kn_pallas_dia_matches_oracle():
     for j in range(4):
         want = csr.spmv(Xkn[j].astype(np.float64))
         np.testing.assert_allclose(got[j], want, rtol=1e-4, atol=1e-4,
-                                   err_msg=f"pallas row {j}")
+                                   err_msg=f"bf16-diagonal row {j}")
         np.testing.assert_allclose(xla[j], want, rtol=1e-4, atol=1e-4,
-                                   err_msg=f"xla row {j}")
+                                   err_msg=f"f32-diagonal row {j}")
 
 
 @pytest.mark.parametrize("fmt", ["dia", "crs"])
@@ -163,7 +163,7 @@ def test_cg_multi_bf16_storage_f32_accumulate():
     accuracy on the generated problem."""
     csr = generate_stencil(6, 6, 6)
     _x0, b, xexact = init_vectors(csr, dtype=np.float32)
-    from sparsebench_tpu.config import DTypePolicy
+    from sparsebench.config import DTypePolicy
 
     A = from_csr("dia", csr, DTypePolicy.from_names("bf16", "i32"))
     B = jnp.asarray(np.stack([b, b], axis=1), jnp.bfloat16)

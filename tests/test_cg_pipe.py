@@ -11,9 +11,9 @@ import pytest
 
 import jax
 
-from sparsebench_tpu.formats import from_csr
-from sparsebench_tpu.host import HostCSR, generate_stencil
-from sparsebench_tpu.solvers.cg import check_residual, init_vectors, solve_cg
+from sparsebench.formats import from_csr
+from sparsebench.host import HostCSR, generate_stencil
+from sparsebench.solvers.cg import check_residual, init_vectors, solve_cg
 
 jax.config.update("jax_enable_x64", True)
 
@@ -103,12 +103,12 @@ def test_pipe_permuted_format():
 
 
 def test_dist_pipe_matches_serial_pipe():
-    from sparsebench_tpu.host.coo import COOMatrix
-    from sparsebench_tpu.parallel.dist import (
+    from sparsebench.host.coo import COOMatrix
+    from sparsebench.parallel.dist import (
         build_distributed,
         dist_solve_cg,
     )
-    from sparsebench_tpu.parallel.partition import slice_coo_rows
+    from sparsebench.parallel.partition import slice_coo_rows
 
     g = generate_stencil(5, 5, 5)
     rows = np.repeat(np.arange(g.nr, dtype=np.int64), g.row_lengths)
@@ -132,7 +132,7 @@ def test_dist_pipe_matches_serial_pipe():
 
 @pytest.mark.parametrize("sharded", [False, True])
 def test_pipe_cli(capsys, sharded):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     argv = ["-t", "cg", "-x", "5", "-y", "5", "-z", "4", "-i", "25",
             "--cg-variant", "pipe"]

@@ -11,9 +11,9 @@ import pytest
 
 import jax
 
-from sparsebench_tpu.formats import from_csr
-from sparsebench_tpu.host import HostCSR, generate_stencil
-from sparsebench_tpu.solvers.cg import check_residual, init_vectors, solve_cg
+from sparsebench.formats import from_csr
+from sparsebench.host import HostCSR, generate_stencil
+from sparsebench.solvers.cg import check_residual, init_vectors, solve_cg
 
 jax.config.update("jax_enable_x64", True)
 

@@ -5,10 +5,10 @@ import numpy as np
 
 import jax
 
-from sparsebench_tpu.formats import from_csr
-from sparsebench_tpu.host import generate_stencil
-from sparsebench_tpu.solvers.cg import init_vectors, solve_cg
-from sparsebench_tpu.solvers.checkpoint import (
+from sparsebench.formats import from_csr
+from sparsebench.host import generate_stencil
+from sparsebench.solvers.cg import init_vectors, solve_cg
+from sparsebench.solvers.checkpoint import (
     load_state,
     save_state,
     solve_cg_checkpointed,

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sparsebench_tpu.cli import apply_args, build_argparser, main
-from sparsebench_tpu.config import Parameter
+from sparsebench.cli import apply_args, build_argparser, main
+from sparsebench.config import Parameter
 
 
 def run_cli(argv):
@@ -187,7 +187,7 @@ def test_cg_variant_rejects_profile():
 
 def test_sharded_checkpoint_resume(tmp_path, capsys):
     """--checkpoint under --shards: whole-mesh snapshots; an interrupted
-    run resumes and reproduces the uninterrupted history (VERDICT r2 #4)."""
+    run resumes and reproduces the uninterrupted history."""
     ck = tmp_path / "dist.ck.npz"
     args = ["-t", "cg", "-x", "4", "-y", "4", "-z", "2", "-i", "12",
             "--shards", "4", "--fmt", "sell",
@@ -225,29 +225,24 @@ def test_sharded_trace_flag(tmp_path, capsys):
     assert any(tdir.rglob("*"))  # trace files were written
 
 
-def test_sharded_impl_flag(capsys):
-    """--impl under --shards reaches the per-shard format build."""
-    rc = run_cli(["-t", "cg", "-x", "4", "-y", "4", "-z", "2", "-i", "8",
-                  "--shards", "2", "--fmt", "bsell", "--impl",
-                  "pallas_interpret"])
-    out = capsys.readouterr().out
-    assert rc == 0
-    assert "Difference between computed and exact  = 0.000" in out
-    # unknown impl names error loudly instead of silently running XLA
-    with pytest.raises(ValueError, match="unknown bsell impl"):
+@pytest.mark.parametrize("flag", [["--impl", "pallas"],
+                                  ["--cg-variant", "fused"],
+                                  ["--cg-variant", "vmem"],
+                                  ["--fmt", "bsell"]])
+def test_removed_kernel_options_rejected(flag):
+    """The options that chose a kernel are gone: argparse refuses them
+    (exit code 2) instead of silently running another path."""
+    with pytest.raises(SystemExit) as e:
         run_cli(["-t", "cg", "-x", "4", "-y", "4", "-z", "2", "-i", "4",
-                 "--shards", "2", "--fmt", "bsell", "--impl", "palas"])
-    # --impl on single-implementation formats is rejected
-    with pytest.raises(ValueError, match="single implementation"):
-        run_cli(["-t", "cg", "-x", "4", "-y", "4", "-z", "2", "-i", "4",
-                 "--shards", "2", "--fmt", "sell", "--impl", "pallas"])
+                 *flag])
+    assert e.value.code == 2
 
 
 def test_sharded_rcm_flag(tmp_path, data_dir, capsys, monkeypatch):
     """--rcm under --shards applies a GLOBAL reordering before slicing,
-    and the .mtx is parsed exactly once for all shards (VERDICT r2 #8)."""
-    import sparsebench_tpu.host as host_pkg
-    import sparsebench_tpu.parallel.driver as drv
+    and the .mtx is parsed exactly once for all shards."""
+    import sparsebench.host as host_pkg
+    import sparsebench.parallel.driver as drv
 
     calls = {"n": 0}
     real_read = host_pkg.read_mm
@@ -298,9 +293,9 @@ def test_rgl_cli_rejects_host_formats():
 
 
 def test_generated_auto_picks_by_size_and_bslab_path_works(capsys):
-    """--fmt auto on generated problems picks dia at every size (the r3
-    grid-padded dbuf kernel wins both 100^3 and 200^3, NOTES.md);
-    --fmt bslab forces the analytic bslab device build."""
+    """--fmt auto on generated problems picks dia at every size (the
+    generated matrix is banded); --fmt bslab forces the analytic bslab
+    device build."""
     rc = run_cli(["-t", "cg", "-x", "6", "-y", "6", "-z", "6", "-i", "15"])
     out = capsys.readouterr().out
     assert rc == 0
@@ -355,7 +350,7 @@ def test_graft_entry_single_and_multi():
 
 
 def test_sharded_rgl_cli(capsys):
-    """--shards x generateRGL (VERDICT r3 next #7): the irregular matrix
+    """--shards x generateRGL: the irregular matrix
     through the any-matrix partition path — non-ring offsets, uneven
     halos — with the allgather exchange backend, solved to the exact
     x == 1 solution."""
@@ -374,14 +369,14 @@ def test_sharded_rgl_matches_serial(capsys):
     (same spec, same iterates up to reduction order)."""
     import jax.numpy as jnp
 
-    from sparsebench_tpu.formats.rgl_build import rgl_bslab
-    from sparsebench_tpu.config import DTypePolicy
-    from sparsebench_tpu.host.rgl import rgl_csr
-    from sparsebench_tpu.parallel.dist import build_distributed, dist_solve_cg
-    from sparsebench_tpu.parallel.partition import slice_coo_rows
-    from sparsebench_tpu.host import HostCSR
-    from sparsebench_tpu.host.coo import COOMatrix
-    from sparsebench_tpu.solvers.cg import solve_cg
+    from sparsebench.formats.rgl_build import rgl_bslab
+    from sparsebench.config import DTypePolicy
+    from sparsebench.host.rgl import rgl_csr
+    from sparsebench.parallel.dist import build_distributed, dist_solve_cg
+    from sparsebench.parallel.partition import slice_coo_rows
+    from sparsebench.host import HostCSR
+    from sparsebench.host.coo import COOMatrix
+    from sparsebench.solvers.cg import solve_cg
 
     n, band, deg, seed = 1100, 96, 8.0, 11
     policy = DTypePolicy.from_names("f64", "i32")
@@ -395,7 +390,7 @@ def test_sharded_rgl_matches_serial(capsys):
     res_d = dist_solve_cg(dm, b, itermax=50, eps=0.0, verbose=False)
     # serial oracle: the on-device builder of the same spec
     A, _ = rgl_bslab(n, band=band, deg=deg, seed=seed, policy=policy,
-                     sub=8, impl="xla")
+                     sub=8)
     res_s = solve_cg(A, b, itermax=50, eps=0.0, verbose=False)
     np.testing.assert_allclose(res_d.x, res_s.x, rtol=1e-8, atol=1e-10)
     np.testing.assert_allclose(

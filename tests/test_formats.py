@@ -10,15 +10,15 @@ import jax
 import numpy as np
 import pytest
 
-from sparsebench_tpu.config import DTypePolicy
-from sparsebench_tpu.formats import FORMATS, from_csr
-from sparsebench_tpu.formats.dia import DiaMatrix, DiaUnsuitableError
-from sparsebench_tpu.host import HostCSR, generate_stencil, read_mm
+from sparsebench.config import DTypePolicy
+from sparsebench.formats import FORMATS, from_csr
+from sparsebench.formats.dia import DiaMatrix, DiaUnsuitableError
+from sparsebench.host import HostCSR, generate_stencil, read_mm
 
 jax.config.update("jax_enable_x64", True)
 
 POLICY = DTypePolicy.from_names("f64", "i32")
-GENERAL_FORMATS = ["crs", "ccrs", "sell", "ell", "bsell"]
+GENERAL_FORMATS = ["crs", "ccrs", "sell", "ell", "bslab"]
 
 
 def _fixtures(test_matrices_dir):
@@ -82,25 +82,9 @@ def test_dia_rejects_wide_matrices(test_matrices_dir):
 
 
 def test_registry_contents():
-    for name in ("crs", "ccrs", "sell", "ell", "dia", "bsell"):
+    for name in ("crs", "ccrs", "sell", "ell", "dia", "bslab", "stencil"):
         assert name in FORMATS
-
-
-def test_bsell_windowed_interpret():
-    """Windowed-x BSELL kernel (for x too large for VMEM) in interpret mode."""
-    from sparsebench_tpu.formats.bsell import BsellMatrix
-
-    csr = generate_stencil(6, 5, 4)
-    x = np.random.default_rng(3).standard_normal(csr.nc).astype(np.float32)
-    A = from_csr("bsell", csr, DTypePolicy.from_names("f32", "i32"))
-    Aw = A.replace(impl="pallas_win_interpret")
-    y = np.asarray(Aw.spmv(x))
-    np.testing.assert_allclose(y, csr.spmv(x.astype(np.float64)), atol=1e-4)
-    Ai = A.replace(impl="pallas_interpret")
-    np.testing.assert_allclose(np.asarray(Ai.spmv(x)), y, atol=1e-5)
-    # chunk-resident windowed variant (single-load row fetches)
-    A2 = A.replace(impl="pallas_win2_interpret")
-    np.testing.assert_allclose(np.asarray(A2.spmv(x)), y, atol=1e-5)
+    assert "bsell" not in FORMATS
 
 
 def test_dia_from_stencil_matches_from_csr():
@@ -110,9 +94,9 @@ def test_dia_from_stencil_matches_from_csr():
     CSR fallback."""
     import numpy as np
 
-    from sparsebench_tpu.config import DTypePolicy
-    from sparsebench_tpu.formats.dia import DiaMatrix
-    from sparsebench_tpu.host import generate_stencil
+    from sparsebench.config import DTypePolicy
+    from sparsebench.formats.dia import DiaMatrix
+    from sparsebench.host import generate_stencil
 
     policy = DTypePolicy.from_names("f32", "i32")
     cases = [
@@ -126,11 +110,11 @@ def test_dia_from_stencil_matches_from_csr():
         dims = case.pop("dims")
         csr = generate_stencil(*dims, dtype=np.float64, **case)
         B, counts = DiaMatrix.from_stencil(
-            *dims, policy=policy, impl="xla", **case
+            *dims, policy=policy, **case
         )
         assert np.array_equal(counts, csr.row_lengths)
         assert B.nnz == csr.nnz
-        A = DiaMatrix.from_csr(csr, policy, impl="xla")
+        A = DiaMatrix.from_csr(csr, policy)
         x = np.random.default_rng(7).standard_normal(A.nc).astype(np.float32)
         ya, yb = np.asarray(A.spmv(x)), np.asarray(B.spmv(x))
         np.testing.assert_allclose(ya, yb, rtol=1e-6, atol=1e-6)
@@ -144,8 +128,8 @@ def test_dia_from_stencil_matches_from_csr():
 def test_init_vectors_from_row_counts():
     import numpy as np
 
-    from sparsebench_tpu.host import generate_stencil
-    from sparsebench_tpu.solvers.cg import init_vectors
+    from sparsebench.host import generate_stencil
+    from sparsebench.solvers.cg import init_vectors
 
     csr = generate_stencil(4, 4, 4, dtype=np.float64)
     x1, b1, e1 = init_vectors(csr, dtype=np.float64)
@@ -155,96 +139,91 @@ def test_init_vectors_from_row_counts():
     assert np.array_equal(b1, b2) and np.array_equal(e1, e2)
 
 
-@pytest.mark.parametrize("use_7pt", [False, True])
-def test_bsell_from_stencil_matches_from_csr(use_7pt):
-    """The on-device stencil->BSELL builder must produce the same SpMV
-    results (and nnz/counts) as the CSR-built BSELL on the same problem
-    (reference generator src/matrix.c:30-121)."""
-    from sparsebench_tpu.formats.bsell import BsellMatrix
-
-    policy = DTypePolicy.from_names("f32", "i32")
-    csr = generate_stencil(7, 6, 5, use_7pt=use_7pt, dtype=np.float32)
-    A, counts = BsellMatrix.from_stencil(7, 6, 5, use_7pt=use_7pt,
-                                         policy=policy)
-    assert A.nnz == csr.nnz
-    np.testing.assert_array_equal(np.asarray(counts), csr.row_lengths)
-    x = np.random.default_rng(11).standard_normal(csr.nc).astype(np.float32)
-    want = csr.spmv(x.astype(np.float64))
-    got = np.asarray(A.spmv(jax.numpy.asarray(x)))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
-    # windowed + whole-x interpret kernels on the device-built arrays
-    for impl in ("pallas_win_interpret", "pallas_win2_interpret",
-                 "pallas_interpret"):
-        got_k = np.asarray(A.replace(impl=impl).spmv(jax.numpy.asarray(x)))
-        np.testing.assert_allclose(got_k, want, rtol=1e-5, atol=1e-4)
-
-
-def test_sell_tpu_bridge_delegate():
-    """--fmt sell TPU bridge (VERDICT r3 next #4): with bridge forced on,
-    SpMV runs through the BslabMatrix delegate in ORIGINAL row order —
-    results must match the unbridged permuted path and the CSR oracle,
-    and permuted_output flips to False so solvers skip perm handling."""
-    from sparsebench_tpu.formats.bslab import BslabMatrix
-    from sparsebench_tpu.formats.sell import SellMatrix
-
-    policy = DTypePolicy.from_names("f32", "i32")
-    csr = generate_stencil(6, 5, 4, dtype=np.float32)
-    plain = SellMatrix.from_csr(csr, policy, C=4)
-    bridged = SellMatrix.from_csr(csr, policy, C=4, bridge=True)
-    assert plain.fast is None and plain.permuted_output
-    assert isinstance(bridged.fast, BslabMatrix)
-    assert not bridged.permuted_output
-    x = np.random.default_rng(5).standard_normal(csr.nc).astype(np.float32)
-    want = csr.spmv(x.astype(np.float64))
-    got_b = np.asarray(bridged.spmv(jax.numpy.asarray(x)))
-    got_p = np.asarray(plain.spmv(jax.numpy.asarray(x)))
-    np.testing.assert_allclose(got_b, want, rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(got_p, want, rtol=1e-5, atol=1e-4)
-    # the SELL layout arrays (golden-parity surface) are unchanged
-    for a, b in zip(plain.vals, bridged.vals):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 def test_sell_bridge_cg_solve():
-    """A CG solve on a bridged SELL matrix follows the unpermuted path."""
-    from sparsebench_tpu.formats.sell import SellMatrix
-    from sparsebench_tpu.solvers.cg import init_vectors, solve_cg
+    """A CG solve on SELL runs in the format's permuted row order and
+    returns x in the original order."""
+    from sparsebench.formats.sell import SellMatrix
+    from sparsebench.solvers.cg import init_vectors, solve_cg
 
     policy = DTypePolicy.from_names("f32", "i32")
     csr = generate_stencil(6, 6, 6, dtype=np.float32)
-    A = SellMatrix.from_csr(csr, policy, bridge=True)
+    A = SellMatrix.from_csr(csr, policy)
+    assert A.permuted_output
     _, b, xexact = init_vectors(csr, dtype=np.float32)
     res = solve_cg(A, b, itermax=60, eps=0.0, verbose=False)
     assert np.abs(res.x - xexact).max() < 1e-4
 
 
-def test_bsell_with_window_reanchors_exactly():
-    """bsell.with_window re-expresses the window-relative block table with
-    a forced chunk size; spmv must be bit-identical. The safety floor is
-    2W - 8 (stored ids only bound content to [win_base, win_base + 2W))."""
-    from sparsebench_tpu.formats.bsell import BsellMatrix, with_window
+def _shifted(csr: HostCSR, s: int) -> HostCSR:
+    """The same entries moved s diagonals to the right (dropping those
+    that leave the square): the offset pattern of a rank's block whose
+    columns are shifted by its start row."""
+    from sparsebench.host.coo import COOMatrix
 
-    policy = DTypePolicy.from_names("f64", "i32")
-    csr = generate_stencil(12, 12, 10)
-    A = BsellMatrix.from_csr(csr, policy)
-    x = np.random.default_rng(3).standard_normal(csr.nc)
-    want = np.asarray(A.spmv(jax.numpy.asarray(x)))
-    assert with_window(A, A.w_blocks) is A  # no-op fast path
-    for target in (2 * A.w_blocks - 8, 2 * A.w_blocks, 4 * A.w_blocks):
-        B = with_window(A, target)
-        assert B.w_blocks == target
-        # absolute block ids (win_base + relative) are preserved
-        np.testing.assert_array_equal(
-            np.asarray(A.blocks) + np.asarray(A.win_base)[:, :, :1],
-            np.asarray(B.blocks) + np.asarray(B.win_base)[:, :, :1],
-        )
-        # relative ids stay inside the kernel's [0, 2W') gather window
-        assert int(np.asarray(B.blocks).max()) < 2 * target
-        assert int(np.asarray(B.blocks).min()) >= 0
-        np.testing.assert_array_equal(
-            np.asarray(B.spmv(jax.numpy.asarray(x))), want
-        )
-    with pytest.raises(ValueError):
-        with_window(A, A.w_blocks - 8)  # below the floor (and a shrink)
-    with pytest.raises(ValueError):
-        with_window(A, 2 * A.w_blocks - 4)  # not a multiple of 8
+    rows = np.repeat(np.arange(csr.nr), csr.row_lengths)
+    col = csr.col + s
+    keep = (col >= 0) & (col < csr.nc)
+    return HostCSR.from_coo(COOMatrix(row=rows[keep], col=col[keep],
+                                      val=csr.val[keep], nr=csr.nr,
+                                      nc=csr.nc))
+
+
+def _diag_pattern(n: int, offsets, value: float) -> HostCSR:
+    from sparsebench.host.coo import COOMatrix
+
+    r, c = [], []
+    for off in offsets:
+        i = np.arange(max(0, -off), min(n, n - off))
+        r.append(i)
+        c.append(i + off)
+    r, c = np.concatenate(r), np.concatenate(c)
+    return HostCSR.from_coo(COOMatrix(row=r, col=c,
+                                      val=np.full(r.size, value), nr=n,
+                                      nc=n))
+
+
+DIA_CASES = {
+    "stencil27": lambda: generate_stencil(5, 6, 7),
+    "stencil7": lambda: generate_stencil(6, 5, 4, use_7pt=True),
+    "thin": lambda: generate_stencil(1, 5, 6),
+    "planes": lambda: generate_stencil(16, 16, 4),
+    "band_klein": lambda: HostCSR.from_coo(read_mm(
+        str(__import__("pathlib").Path(__file__).parent / "data"
+            / "matrix_band_klein.mtx"))),
+    "shift+1": lambda: _diag_pattern(300, [1], 2.0),
+    "shift-3": lambda: _diag_pattern(300, [-3], -1.0),
+    "identity": lambda: _diag_pattern(300, [0], 27.0),
+}
+# storage -> (policy, compress, rtol of max|y| against the f64 oracle)
+DIA_STORAGE = {
+    "f32-bf16": ("f32", True, 1e-5),
+    "f32": ("f32", False, 1e-5),
+    "f64": ("f64", False, 1e-12),
+}
+
+
+@pytest.mark.parametrize("shift", [0, 5])
+@pytest.mark.parametrize("storage", sorted(DIA_STORAGE))
+@pytest.mark.parametrize("case", sorted(DIA_CASES))
+def test_dia_matches_csr_oracle(case, storage, shift):
+    """DIA's gather-free shifted-slice SpMV against the CSR oracle, for
+    stencils, the band matrix and pure-shift patterns, in each storage
+    (bf16 diagonals are used only where lossless), serial and with every
+    offset shifted as in a rank's block."""
+    csr = DIA_CASES[case]()
+    if shift:
+        csr = _shifted(csr, shift)
+    value, compress, rtol = DIA_STORAGE[storage]
+    policy = DTypePolicy.from_names(value, "i32")
+    A = DiaMatrix.from_csr(csr, policy, compress=compress)
+    stored = np.dtype(A.data.dtype).name
+    if storage == "f32-bf16" and case != "band_klein":
+        assert stored == "bfloat16"  # exact 27 / -1 / 2 values
+    elif storage != "f32-bf16":
+        assert stored == ("float64" if value == "f64" else "float32")
+    x = np.random.default_rng(5).standard_normal(csr.nc)
+    x = x.astype(np.float64 if value == "f64" else np.float32)
+    y = np.asarray(jax.jit(A.spmv)(x))
+    want = csr.spmv(x.astype(np.float64))
+    assert y.shape == want.shape
+    assert np.abs(y - want).max() <= rtol * max(np.abs(want).max(), 1.0)

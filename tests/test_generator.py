@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from sparsebench_tpu.host import generate_stencil
+from sparsebench.host import generate_stencil
 
 
 def _oracle(nx, ny, nz, rank, size, use_7pt):

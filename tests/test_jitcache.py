@@ -7,13 +7,13 @@ second-run-is-warm bench convention silently measured compile time."""
 import numpy as np
 import pytest
 
-from sparsebench_tpu.config import DTypePolicy
-from sparsebench_tpu.solvers._jitcache import _cached, jit_loop
+from sparsebench.config import DTypePolicy
+from sparsebench.solvers._jitcache import _cached, jit_loop
 
 
 @pytest.fixture()
 def stencil_a():
-    from sparsebench_tpu.formats.dia import DiaMatrix
+    from sparsebench.formats.dia import DiaMatrix
 
     policy = DTypePolicy.from_names("f32", "i32")
     A, _ = DiaMatrix.from_stencil(6, 5, 4, policy=policy)
@@ -40,7 +40,7 @@ def test_jit_loop_unhashable_falls_back_uncached():
 
 
 def test_repeat_cg_solves_share_compiled_loop(stencil_a):
-    from sparsebench_tpu.solvers.cg import solve_cg
+    from sparsebench.solvers.cg import solve_cg
 
     b = np.ones(stencil_a.nr, np.float32)
     h0 = _cached.cache_info().hits
@@ -53,7 +53,7 @@ def test_repeat_cg_solves_share_compiled_loop(stencil_a):
 
 
 def test_repeat_gmres_solves_hit_cycle_trace_cache(stencil_a):
-    from sparsebench_tpu.solvers.gmres import _CYCLE_JIT, solve_gmres
+    from sparsebench.solvers.gmres import _CYCLE_JIT, solve_gmres
 
     b = np.ones(stencil_a.nr, np.float32)
     r1 = solve_gmres(stencil_a, b, itermax=20, restart=10, verbose=False)

@@ -11,10 +11,10 @@ import pytest
 
 import jax
 
-from sparsebench_tpu.formats import from_csr
-from sparsebench_tpu.host import HostCSR, generate_stencil
-from sparsebench_tpu.solvers.cg import check_residual, init_vectors
-from sparsebench_tpu.solvers.minres import solve_minres
+from sparsebench.formats import from_csr
+from sparsebench.host import HostCSR, generate_stencil
+from sparsebench.solvers.cg import check_residual, init_vectors
+from sparsebench.solvers.minres import solve_minres
 
 jax.config.update("jax_enable_x64", True)
 
@@ -47,7 +47,7 @@ def test_minres_spd_matches_cg_rate():
     """On an SPD system MINRES minimizes ||r|| over the same Krylov
     spaces CG draws from — its residuals are monotone and no worse than
     CG's at every step."""
-    from sparsebench_tpu.solvers.cg import solve_cg
+    from sparsebench.solvers.cg import solve_cg
 
     csr = generate_stencil(6, 6, 6)
     _x0, b, _ = init_vectors(csr)
@@ -83,7 +83,7 @@ def test_minres_indefinite_where_cg_fails():
     p.Ap can go negative and its iterates stall or blow up; MINRES
     converges cleanly. (CG's breakdown guard freezes — we only assert
     MINRES reaches the oracle while CG does not.)"""
-    from sparsebench_tpu.solvers.cg import solve_cg
+    from sparsebench.solvers.cg import solve_cg
 
     csr = _shifted(4, 4, 4)
     dense = csr.to_dense()
@@ -151,12 +151,12 @@ def test_minres_f32_and_bf16_paths():
 
 
 def test_dist_minres_matches_serial():
-    from sparsebench_tpu.host.coo import COOMatrix
-    from sparsebench_tpu.parallel.dist import (
+    from sparsebench.host.coo import COOMatrix
+    from sparsebench.parallel.dist import (
         build_distributed,
         dist_solve_minres,
     )
-    from sparsebench_tpu.parallel.partition import slice_coo_rows
+    from sparsebench.parallel.partition import slice_coo_rows
 
     csr = _shifted(4, 4, 4)
     rows = np.repeat(np.arange(csr.nr, dtype=np.int64), csr.row_lengths)
@@ -188,7 +188,7 @@ def test_dist_minres_matches_serial():
 
 @pytest.mark.parametrize("sharded", [False, True])
 def test_minres_cli(capsys, sharded):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     argv = ["-t", "minres", "-x", "5", "-y", "5", "-z", "4", "-i", "60",
             "-e", "1e-8"]
@@ -204,7 +204,7 @@ def test_minres_cli(capsys, sharded):
 
 
 def test_minres_cli_rejects_cheb_precond(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     with pytest.raises(SystemExit):
         main(["-t", "minres", "-x", "4", "-y", "4", "-z", "4",

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sparsebench_tpu.host import HostCSR, read_mm
-from sparsebench_tpu.host.mmio import MMFormatError, read_mm_string
+from sparsebench.host import HostCSR, read_mm
+from sparsebench.host.mmio import MMFormatError, read_mm_string
 
 
 def test_read_test0(test_matrices_dir):

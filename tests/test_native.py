@@ -1,13 +1,13 @@
 """Native C++ host library parity tests (native/ingest.cc vs the numpy
-behavioral spec in sparsebench_tpu/host)."""
+behavioral spec in sparsebench/host)."""
 
 import os
 
 import numpy as np
 import pytest
 
-from sparsebench_tpu.host import generate_stencil, read_mm
-from sparsebench_tpu.host.native import available
+from sparsebench.host import generate_stencil, read_mm
+from sparsebench.host.native import available
 
 pytestmark = pytest.mark.skipif(
     not available(), reason="native library unavailable (no toolchain?)"
@@ -58,14 +58,14 @@ def test_pool_allocator_clean_exit(tmp_path):
     import sys
 
     so = os.path.join(
-        os.path.dirname(__file__), "..", "sparsebench_tpu", "native",
+        os.path.dirname(__file__), "..", "sparsebench", "native",
         "sb_npalloc.so",
     )
     if not os.path.exists(so):
         pytest.skip("native allocator not built")
     script = (
         "import sys; sys.path.insert(0, %r)\n"
-        "from sparsebench_tpu import _malloc_tuning\n"
+        "from sparsebench import _malloc_tuning\n"
         "assert _malloc_tuning.install_pool_allocator()\n"
         "import numpy as np\n"
         # several distinct >=1MB size classes -> multiple pool segments

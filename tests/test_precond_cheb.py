@@ -13,11 +13,11 @@ import pytest
 
 import jax
 
-from sparsebench_tpu.formats import from_csr
-from sparsebench_tpu.host import generate_stencil
-from sparsebench_tpu.solvers.cg import solve_cg
-from sparsebench_tpu.solvers.chebyshev import bounds_from_tridiag
-from sparsebench_tpu.solvers.precond import ChebPrecond, cheb_precond_for
+from sparsebench.formats import from_csr
+from sparsebench.host import generate_stencil
+from sparsebench.solvers.cg import solve_cg
+from sparsebench.solvers.chebyshev import bounds_from_tridiag
+from sparsebench.solvers.precond import ChebPrecond, cheb_precond_for
 
 jax.config.update("jax_enable_x64", True)
 
@@ -100,7 +100,7 @@ def test_cheb_pcg_cs_matches_standard():
 def test_cheb_jacobi_on_scaled_system():
     """Scaled polynomial (precond + inv_diag): on a badly diagonally
     scaled SPD system it must beat BOTH plain CG and pure Jacobi PCG."""
-    from sparsebench_tpu.host import HostCSR
+    from sparsebench.host import HostCSR
 
     csr = generate_stencil(8, 8, 8)
     rng = np.random.default_rng(2)
@@ -157,7 +157,7 @@ def test_cheb_pcg_pipe_matches_standard():
 def test_cheb_jacobi_pipe_scaled_system():
     """Scaled polynomial + pipe on a badly scaled system: the drift
     repair keeps the recurrence honest; solution matches standard."""
-    from sparsebench_tpu.host import HostCSR
+    from sparsebench.host import HostCSR
 
     csr = generate_stencil(8, 8, 8)
     rng = np.random.default_rng(11)
@@ -200,7 +200,7 @@ def test_cheb_gmres_beats_plain():
     """Right polynomial preconditioning for GMRES: the Arnoldi operator is
     A p_k(A) — fixed, so plain GMRES theory applies — and the reported
     norm stays the TRUE residual."""
-    from sparsebench_tpu.solvers.gmres import solve_gmres
+    from sparsebench.solvers.gmres import solve_gmres
 
     csr = generate_stencil(10, 10, 10)
     A = from_csr("crs", csr)
@@ -219,8 +219,8 @@ def test_cheb_gmres_beats_plain():
 def test_cheb_jacobi_gmres_scaled_system():
     """Scaled polynomial (cheb-jacobi) for GMRES on a badly diagonally
     scaled SPD system: solution correct, beats pure Jacobi."""
-    from sparsebench_tpu.host import HostCSR
-    from sparsebench_tpu.solvers.gmres import solve_gmres
+    from sparsebench.host import HostCSR
+    from sparsebench.solvers.gmres import solve_gmres
 
     csr = generate_stencil(7, 6, 5)
     rng = np.random.default_rng(7)
@@ -245,7 +245,7 @@ def test_cheb_jacobi_gmres_scaled_system():
 
 
 def test_cheb_bicgstab_beats_plain():
-    from sparsebench_tpu.solvers.bicgstab import solve_bicgstab
+    from sparsebench.solvers.bicgstab import solve_bicgstab
 
     csr = generate_stencil(10, 10, 10)
     A = from_csr("crs", csr)
@@ -264,7 +264,7 @@ def test_cheb_bicgstab_beats_plain():
 # ------------------------------------------------------- distributed PCG
 
 def test_dist_cheb_pcg_parity():
-    from sparsebench_tpu.parallel.dist import (
+    from sparsebench.parallel.dist import (
         _dist_estimate_bounds,
         build_distributed,
         dist_solve_cg,
@@ -300,13 +300,13 @@ def test_dist_cheb_pcg_parity():
 
 
 def test_dist_cheb_pcg_stencil_parity():
-    from sparsebench_tpu.parallel.stencil_dist import (
+    from sparsebench.parallel.stencil_dist import (
         build_halo_stencil,
         dist_estimate_bounds_stencil,
         dist_solve_cg_stencil,
     )
 
-    from sparsebench_tpu.config import DTypePolicy
+    from sparsebench.config import DTypePolicy
 
     size = 4
     nx, ny, nz = 8, 8, 3
@@ -332,13 +332,13 @@ def test_dist_cheb_gmres_bicgstab_parity():
     """Distributed GMRES/BiCGStab with the Chebyshev polynomial: the
     preconditioner apply runs inside shard_map (degree halo exchanges,
     zero psums) and must reproduce the serial run bit-for-rounding."""
-    from sparsebench_tpu.parallel.dist import (
+    from sparsebench.parallel.dist import (
         build_distributed,
         dist_solve_bicgstab,
         dist_solve_gmres,
     )
-    from sparsebench_tpu.solvers.bicgstab import solve_bicgstab
-    from sparsebench_tpu.solvers.gmres import solve_gmres
+    from sparsebench.solvers.bicgstab import solve_bicgstab
+    from sparsebench.solvers.gmres import solve_gmres
 
     size = 4
     shards = [generate_stencil(6, 6, 2, rank=r, size=size)
@@ -366,7 +366,7 @@ def test_dist_cheb_gmres_bicgstab_parity():
 # --------------------------------------------------------------- CLI
 
 def test_cli_cheb_precond(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     rc = main(["-t", "cg", "-x", "8", "-y", "8", "-z", "8", "-i", "100",
                "-e", "1e-8", "--precond", "cheb", "--precond-degree", "2"])
@@ -377,7 +377,7 @@ def test_cli_cheb_precond(capsys):
 
 
 def test_cli_cheb_jacobi_sharded(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     rc = main(["-t", "cg", "-x", "6", "-y", "6", "-z", "2", "-i", "100",
                "-e", "1e-8", "--shards", "4", "--precond", "cheb-jacobi",
@@ -388,7 +388,7 @@ def test_cli_cheb_jacobi_sharded(capsys):
 
 
 def test_cli_cheb_gmres(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     rc = main(["-t", "gmres", "-x", "8", "-y", "8", "-z", "8", "-i", "100",
                "-e", "1e-6", "--precond", "cheb", "--precond-degree", "2"])
@@ -398,7 +398,7 @@ def test_cli_cheb_gmres(capsys):
 
 
 def test_cli_cheb_jacobi_bicgstab_sharded(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     rc = main(["-t", "bicgstab", "-x", "6", "-y", "6", "-z", "2", "-i",
                "100", "-e", "1e-8", "--shards", "4", "--precond",
@@ -411,7 +411,7 @@ def test_cli_cheb_jacobi_bicgstab_sharded(capsys):
 def test_cli_cheb_rejects_cheb_solver():
     """Chebyshev-preconditioning the Chebyshev solver is the same
     polynomial twice — rejected with guidance (cg/gmres/bicgstab allowed)."""
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     with pytest.raises(SystemExit, match="cg/gmres/bicgstab"):
         main(["-t", "cheb", "-x", "5", "-y", "5", "-z", "5",
@@ -419,7 +419,7 @@ def test_cli_cheb_rejects_cheb_solver():
 
 
 def test_cli_precond_degree_warning(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     rc = main(["-t", "cg", "-x", "5", "-y", "5", "-z", "5", "-i", "5",
                "--precond-degree", "5"])

@@ -13,10 +13,10 @@ import pytest
 
 import jax
 
-from sparsebench_tpu.formats import from_csr
-from sparsebench_tpu.host import HostCSR, generate_stencil
-from sparsebench_tpu.solvers.chebyshev import solve_chebyshev
-from sparsebench_tpu.solvers.gmres import solve_gmres
+from sparsebench.formats import from_csr
+from sparsebench.host import HostCSR, generate_stencil
+from sparsebench.solvers.chebyshev import solve_chebyshev
+from sparsebench.solvers.gmres import solve_gmres
 
 jax.config.update("jax_enable_x64", True)
 
@@ -165,13 +165,13 @@ def test_cheby_jacobi_bounds_are_preconditioned_spectrum():
 
 @pytest.fixture(scope="module")
 def dist_pair():
-    from sparsebench_tpu.parallel.dist import build_distributed
-    from sparsebench_tpu.parallel.partition import slice_coo_rows
+    from sparsebench.parallel.dist import build_distributed
+    from sparsebench.parallel.partition import slice_coo_rows
 
     scaled, rng = _scaled_spd(4, 4, 4, seed=13)
     rows = np.repeat(np.arange(scaled.nr, dtype=np.int64),
                      scaled.row_lengths)
-    from sparsebench_tpu.host.coo import COOMatrix
+    from sparsebench.host.coo import COOMatrix
 
     coo = COOMatrix(row=rows, col=scaled.col, val=scaled.val,
                     nr=scaled.nr, nc=scaled.nc)
@@ -182,7 +182,7 @@ def dist_pair():
 
 
 def test_dist_gmres_jacobi_matches_serial(dist_pair):
-    from sparsebench_tpu.parallel.dist import dist_solve_gmres
+    from sparsebench.parallel.dist import dist_solve_gmres
 
     scaled, dm, b = dist_pair
     inv_diag = 1.0 / scaled.diagonal()
@@ -198,7 +198,7 @@ def test_dist_gmres_jacobi_matches_serial(dist_pair):
 
 
 def test_dist_cheby_jacobi_matches_serial(dist_pair):
-    from sparsebench_tpu.parallel.dist import dist_solve_chebyshev
+    from sparsebench.parallel.dist import dist_solve_chebyshev
 
     scaled, dm, b = dist_pair
     inv_diag = 1.0 / scaled.diagonal()

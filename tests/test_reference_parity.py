@@ -18,9 +18,9 @@ import pytest
 
 import jax
 
-from sparsebench_tpu.formats import from_csr
-from sparsebench_tpu.host import HostCSR, generate_stencil, read_mm
-from sparsebench_tpu.solvers.cg import init_vectors, solve_cg
+from sparsebench.formats import from_csr
+from sparsebench.host import HostCSR, generate_stencil, read_mm
+from sparsebench.solvers.cg import init_vectors, solve_cg
 
 jax.config.update("jax_enable_x64", True)
 
@@ -126,9 +126,8 @@ def test_mm_matrix_residual_history(reference_binary, data_dir):
 def test_bmx_write_byte_parity(reference_binary, data_dir, tmp_path):
     """The reference's matrixBinWrite (real code via the serial MPI shim,
     src/matrixBinfile.c:37-105) and our write_bmx must produce IDENTICAL
-    bytes for the same matrix (round-1 VERDICT: compatibility was asserted
-    but never tested)."""
-    from sparsebench_tpu.host.binfile import write_bmx
+    bytes for the same matrix."""
+    from sparsebench.host.binfile import write_bmx
 
     # reference: -c converts data/matrix_band_klein.mtx -> .bmx in its tree
     ref_bmx = reference_binary.parent / "data" / "matrix_band_klein.bmx"
@@ -152,7 +151,7 @@ def test_bmx_reference_reads_ours(reference_binary, data_dir, tmp_path):
     """The reference's matrixBinRead (src/matrixBinfile.c:107-236) must
     accept a file written by our write_bmx and solve to the same residual
     history as our CG on the same matrix."""
-    from sparsebench_tpu.host.binfile import read_bmx, write_bmx
+    from sparsebench.host.binfile import read_bmx, write_bmx
 
     csr = HostCSR.from_coo(read_mm(str(data_dir / "matrix_band_klein.mtx")))
     bmx = reference_binary.parent / "ours_klein.bmx"

@@ -13,10 +13,10 @@ import pytest
 
 import jax
 
-from sparsebench_tpu.config import DTypePolicy
-from sparsebench_tpu.formats import from_csr
-from sparsebench_tpu.host import generate_stencil
-from sparsebench_tpu.solvers.refine import (
+from sparsebench.config import DTypePolicy
+from sparsebench.formats import from_csr
+from sparsebench.host import generate_stencil
+from sparsebench.solvers.refine import (
     refine_lo_dtype,
     refine_lo_policy,
     solve_cg_refine,
@@ -107,7 +107,7 @@ def test_stagnation_stops_early():
 def test_defaults_to_same_operator():
     """A_lo=None falls back to A_hi — exact for dtype-agnostic operators
     (stencil); the refinement still converges (inner vectors are lo)."""
-    from sparsebench_tpu.formats.stencil import StencilOperator
+    from sparsebench.formats.stencil import StencilOperator
 
     A, rc = StencilOperator.from_stencil(8, 8, 8, policy=F32)
     b = (27.0 - (rc - 1)).astype(np.float32)
@@ -143,7 +143,7 @@ def test_rejects_bf16_b():
 # ------------------------------------------------------------ distributed
 
 def test_dist_refine_matches_serial():
-    from sparsebench_tpu.parallel.dist import (
+    from sparsebench.parallel.dist import (
         DistMatrix,
         build_distributed,
         dist_solve_cg_refine,
@@ -166,7 +166,7 @@ def test_dist_refine_matches_serial():
 
 
 def test_dist_refine_stencil():
-    from sparsebench_tpu.parallel.stencil_dist import (
+    from sparsebench.parallel.stencil_dist import (
         build_halo_stencil,
         dist_solve_cg_refine_stencil,
     )
@@ -182,7 +182,7 @@ def test_dist_refine_stencil():
 # --------------------------------------------------------------- CLI
 
 def test_cli_refine(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     rc = main(["-t", "cg", "-x", "8", "-y", "8", "-z", "8", "-i", "100",
                "-e", "1e-4", "--refine"])
@@ -194,7 +194,7 @@ def test_cli_refine(capsys):
 
 
 def test_cli_refine_sharded(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     rc = main(["-t", "cg", "-x", "6", "-y", "6", "-z", "2", "-i", "100",
                "-e", "1e-10", "--dtype", "f64", "--fmt", "crs",
@@ -205,7 +205,7 @@ def test_cli_refine_sharded(capsys):
 
 
 def test_cli_refine_stencil_sharded(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     rc = main(["-t", "cg", "-x", "6", "-y", "6", "-z", "2", "-i", "100",
                "-e", "1e-4", "--fmt", "stencil", "--shards", "4",
@@ -216,7 +216,7 @@ def test_cli_refine_stencil_sharded(capsys):
 
 
 def test_cli_refine_rejects_combos():
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     for extra in (["--precond", "jacobi"], ["--cg-variant", "cs"],
                   ["--profile"]):
@@ -226,7 +226,7 @@ def test_cli_refine_rejects_combos():
 
 
 def test_cli_refine_warnings(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     rc = main(["-t", "gmres", "-x", "5", "-y", "5", "-z", "5", "-i", "20",
                "--refine"])
@@ -242,7 +242,7 @@ def test_cli_refine_warnings(capsys):
 
 
 def test_cli_refine_rejects_bf16():
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     with pytest.raises((SystemExit, ValueError), match="headroom"):
         main(["-t", "cg", "-x", "5", "-y", "5", "-z", "5", "--dtype",

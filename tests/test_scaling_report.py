@@ -18,7 +18,7 @@ def test_child_sweep_structure():
     assert row["rows"] == nx * ny * nz * size
     # BASELINE bar: distributed residual history matches single-device
     # to 1e-9 relative — for EVERY solve path in the sweep (r5 adds
-    # pipe/fused variants, the split bslab build, and the irregular RGL
+    # pipe variant, the split bslab build, and the irregular RGL
     # leg through the allgather backend)
     for key in ("parity_standard", "parity_cs", "parity_pipe",
                 "parity_sstep", "parity_bslab", "parity_stencil",
@@ -53,7 +53,7 @@ def test_render_markdown():
     assert ("| 4 | 1024 | 1.0e-16 | 2.0e-16 | 4.0e-16 | 5.0e-16 "
             "| 6.0e-16 | 3.0e-16 | 7.0e-16 | 128") in md
     assert "BASELINE.md target" in md
-    # pre-r5 rows (no pipe/fused/bslab/rgl keys) still render
+    # older rows (no pipe/sstep/bslab/rgl keys) still render
     old = {k: v for k, v in row.items()
            if not k.startswith(("parity_pipe", "parity_sstep",
                                 "parity_bslab", "parity_rgl"))}

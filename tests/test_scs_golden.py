@@ -9,12 +9,12 @@ lengths, padding, column-major-in-chunk order, permutation vectors.
 import numpy as np
 import pytest
 
-from sparsebench_tpu.formats.scs_host import (
+from sparsebench.formats.scs_host import (
     dump_reference_format,
     sell_convert,
     sell_spmv_host,
 )
-from sparsebench_tpu.host import HostCSR, read_mm
+from sparsebench.host import HostCSR, read_mm
 
 
 @pytest.mark.parametrize("name", ["test0", "test8"])

@@ -7,33 +7,49 @@ generated CSR on asymmetric grids, degenerate thin grids, and both
 stencils, plus CG end-to-end equivalence.
 """
 
+import jax
 import numpy as np
 import pytest
 
-from sparsebench_tpu.config import DTypePolicy
-from sparsebench_tpu.formats.stencil import (
+from sparsebench.config import DTypePolicy
+from sparsebench.formats.stencil import (
     StencilOperator,
     stencil_row_counts,
 )
-from sparsebench_tpu.host import generate_stencil
+from sparsebench.host import generate_stencil
+
+jax.config.update("jax_enable_x64", True)
 
 F32 = DTypePolicy.from_names("f32", "i32")
+# x dtype -> (rtol, atol) of the apply against the f64 dense oracle
+TOL = {np.float32: (2e-5, 2e-4), np.float64: (1e-13, 1e-12)}
 
 GRIDS = [(8, 8, 8), (10, 9, 7), (4, 4, 4), (1, 5, 6), (2, 2, 2), (1, 1, 9)]
 
 
 @pytest.mark.parametrize("dims", GRIDS)
 @pytest.mark.parametrize("use_7pt", [False, True])
-def test_spmv_matches_generated_matrix(dims, use_7pt):
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_spmv_matches_generated_matrix(dims, use_7pt, dtype):
+    """The operator adopts the vector dtype; both agree with the dense
+    generated matrix and with the neighbour-sum formula chip_smoke.py
+    checks the card against."""
+    from chip_smoke import stencil_reference
+
     nx, ny, nz = dims
     csr = generate_stencil(nx, ny, nz, use_7pt=use_7pt, dtype=np.float64)
     A, counts = StencilOperator.from_stencil(nx, ny, nz, use_7pt=use_7pt,
                                              policy=F32)
     rng = np.random.default_rng(7)
-    x = rng.standard_normal(csr.nc).astype(np.float32)
+    x = rng.standard_normal(csr.nc).astype(dtype)
     want = csr.to_dense() @ x.astype(np.float64)
+    np.testing.assert_allclose(
+        stencil_reference(x.astype(np.float64), nx, ny, nz, use_7pt), want,
+        rtol=1e-13, atol=1e-12)
     got = np.asarray(A.spmv(x))
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-4)
+    assert got.dtype == dtype
+    rtol, atol = TOL[dtype]
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
     assert A.nnz == csr.nnz
     np.testing.assert_array_equal(counts, csr.row_lengths)
 
@@ -49,7 +65,7 @@ def test_row_counts_analytic(dims, use_7pt):
 
 
 def test_cg_end_to_end():
-    from sparsebench_tpu.solvers.cg import (
+    from sparsebench.solvers.cg import (
         check_residual,
         init_vectors,
         solve_cg,
@@ -62,7 +78,7 @@ def test_cg_end_to_end():
 
 
 def test_physical_bytes_are_vectors_only():
-    from sparsebench_tpu.formats.base import physical_spmv_bytes
+    from sparsebench.formats.base import physical_spmv_bytes
 
     A, _ = StencilOperator.from_stencil(8, 8, 8, policy=F32)
     assert physical_spmv_bytes(A, 4) == (A.nr + A.nc) * 4
@@ -73,129 +89,16 @@ def test_guards():
         StencilOperator.from_stencil(4, 4, 4, rank=1, size=2)
     with pytest.raises(ValueError, match="matrix-free"):
         StencilOperator.from_csr(None)
-    with pytest.raises(ValueError, match="unknown stencil impl"):
-        StencilOperator.from_stencil(4, 4, 4, impl="palas")
 
 
-@pytest.mark.parametrize("dims", [(8, 8, 8), (10, 9, 7), (128, 3, 2),
-                                  (5, 4, 3)])
-@pytest.mark.parametrize("use_7pt", [False, True])
-def test_pallas_kernel_matches_oracle(dims, use_7pt):
-    """Fused Pallas apply (interpret mode on CPU) vs the generated CSR,
-    including the nx%128==0 extra-lane-group case and prime nz."""
-    nx, ny, nz = dims
-    A, _ = StencilOperator.from_stencil(nx, ny, nz, use_7pt=use_7pt,
-                                        policy=F32, impl="pallas")
-    assert A.permuted_output
-    csr = generate_stencil(nx, ny, nz, use_7pt=use_7pt, dtype=np.float64)
-    rng = np.random.default_rng(11)
-    x = rng.standard_normal(A.nr).astype(np.float32)
-    want = csr.to_dense() @ x.astype(np.float64)
-    got = np.asarray(A.spmv(x))  # pad -> fused kernel -> unpad
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-4)
-    # padded-space invariant: pad stays exactly zero
-    yp = np.asarray(A.spmv_permuted(A.permute_vector(x)))
-    back = np.asarray(A.permute_vector(A.unpermute_vector(yp)))
-    np.testing.assert_array_equal(yp, back)
+def test_stencil_other_solvers():
+    """GMRES and Chebyshev run on the matrix-free operator."""
+    from sparsebench.solvers.chebyshev import solve_chebyshev
+    from sparsebench.solvers.cg import check_residual, init_vectors
+    from sparsebench.solvers.gmres import solve_gmres
 
-
-def test_pallas_cg_end_to_end():
-    from sparsebench_tpu.solvers.cg import (
-        check_residual,
-        init_vectors,
-        solve_cg,
-    )
-
-    A, counts = StencilOperator.from_stencil(10, 9, 8, policy=F32,
-                                             impl="pallas")
+    A, counts = StencilOperator.from_stencil(4, 4, 3, policy=F32)
     _, b, xexact = init_vectors(row_lengths=counts, dtype=np.float32)
-    res = solve_cg(A, b, itermax=80, eps=0.0, verbose=False)
-    assert check_residual(res.x, xexact) < 1e-4
-    # iterates match the XLA (unpadded) operator to rounding
-    Ax, _ = StencilOperator.from_stencil(10, 9, 8, policy=F32, impl="xla")
-    res_x = solve_cg(Ax, b, itermax=80, eps=0.0, verbose=False)
-    n = min(res.iterations, res_x.iterations)
-    np.testing.assert_allclose(res.residual_history[:n],
-                               res_x.residual_history[:n],
-                               rtol=1e-4, atol=1e-6)
-
-
-def test_cs_update_kernel():
-    """One-pass fused axpy quad (ops/cg_fused.py) vs the plain ops."""
-    from sparsebench_tpu.ops.cg_fused import cs_update_pallas
-
-    rng = np.random.default_rng(2)
-    n = 8 * 128 * 3
-    u, p, w, s, x, r = (rng.standard_normal(n).astype(np.float32)
-                        for _ in range(6))
-    import jax.numpy as jnp
-
-    al, be = jnp.float32(0.37), jnp.float32(-1.25)
-    p2, s2, x2, r2 = cs_update_pallas(u, p, w, s, x, r, al, be,
-                                      interpret=True)
-    pe = u + float(be) * p
-    se = w + float(be) * s
-    kw = dict(rtol=1e-5, atol=1e-6)  # fma vs separate mul+add rounding
-    np.testing.assert_allclose(np.asarray(p2), pe, **kw)
-    np.testing.assert_allclose(np.asarray(s2), se, **kw)
-    np.testing.assert_allclose(np.asarray(x2), x + float(al) * pe, **kw)
-    np.testing.assert_allclose(np.asarray(r2), r - float(al) * se, **kw)
-
-
-def test_pallas_cs_fused_matches_standard(monkeypatch):
-    """The fully-fused cs loop (spmv_permuted_dots + cs_update_pallas,
-    opt-in via SB_FUSED_CS — measured slower on the dev chip, kept for
-    multi-chip latency experiments) produces the same Krylov iterates as
-    the standard loop."""
-    monkeypatch.setenv("SB_FUSED_CS", "1")
-    from sparsebench_tpu.solvers.cg import (
-        check_residual,
-        init_vectors,
-        solve_cg,
-    )
-
-    A, counts = StencilOperator.from_stencil(10, 9, 8, policy=F32,
-                                             impl="pallas")
-    assert A.supports_fused_cs
-    _, b, xexact = init_vectors(row_lengths=counts, dtype=np.float32)
-    res = solve_cg(A, b, itermax=80, eps=0.0, verbose=False, variant="cs")
-    assert check_residual(res.x, xexact) < 1e-4
-    res_std = solve_cg(A, b, itermax=80, eps=0.0, verbose=False)
-    n = min(res.iterations, res_std.iterations)
-    np.testing.assert_allclose(res.residual_history[:n],
-                               res_std.residual_history[:n],
-                               rtol=1e-4, atol=1e-6)
-
-
-def test_spmv_permuted_dots_values():
-    A, _ = StencilOperator.from_stencil(8, 7, 6, policy=F32,
-                                        impl="pallas")
-    rng = np.random.default_rng(9)
-    x = rng.standard_normal(A.nr).astype(np.float32)
-    xp = A.permute_vector(x)
-    w, gd = A.spmv_permuted_dots(xp)
-    np.testing.assert_allclose(np.asarray(w),
-                               np.asarray(A.spmv_permuted(xp)), rtol=1e-6)
-    np.testing.assert_allclose(float(gd[0]), float(np.dot(x, x)),
-                               rtol=1e-5)
-    wx = np.asarray(A.unpermute_vector(w))
-    np.testing.assert_allclose(float(gd[1]),
-                               float(np.dot(wx.astype(np.float64), x)),
-                               rtol=1e-4)
-
-
-def test_pallas_other_solvers():
-    """GMRES and Chebyshev handle the padded ('permuted') stencil space
-    through the same generic hooks as SELL (solvers/*.py)."""
-    from sparsebench_tpu.solvers.chebyshev import solve_chebyshev
-    from sparsebench_tpu.solvers.cg import check_residual, init_vectors
-    from sparsebench_tpu.solvers.gmres import solve_gmres
-
-    A, counts = StencilOperator.from_stencil(4, 4, 3, policy=F32,
-                                             impl="pallas")
-    _, b, xexact = init_vectors(row_lengths=counts, dtype=np.float32)
-    # small sizes: interpret-mode pallas makes each traced spmv costly,
-    # and GMRES unrolls `restart` of them into one jit
     res = solve_gmres(A, b, itermax=16, restart=8, eps=1e-8, verbose=False)
     assert check_residual(res.x, xexact) < 1e-3
     res_c = solve_chebyshev(A, b, itermax=80, eps=1e-10, verbose=False)
@@ -203,7 +106,7 @@ def test_pallas_other_solvers():
 
 
 def test_cli_stencil_fmt(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     rc = main(["-t", "cg", "-x", "8", "-y", "8", "-z", "8", "-i", "40",
                "--fmt", "stencil"])
@@ -214,22 +117,10 @@ def test_cli_stencil_fmt(capsys):
 
 
 def test_cli_stencil_spmv_bench(capsys):
-    from sparsebench_tpu.cli import main
+    from sparsebench.cli import main
 
     rc = main(["-t", "spmv", "-x", "8", "-y", "8", "-z", "8", "-i", "5",
                "--fmt", "stencil"])
     out = capsys.readouterr().out
     assert rc == 0
     assert "Test type: SPMVM" in out
-
-
-def test_f64_policy_keeps_xla_impl():
-    """auto never picks the Pallas kernel for f64 vectors (Mosaic has no
-    f64); the XLA tensor-product form carries the f64 path."""
-    F64 = DTypePolicy.from_names("f64", "i32")
-    A, _ = StencilOperator.from_stencil(4, 4, 4, policy=F64)
-    assert A.impl == "xla"
-    from sparsebench_tpu.parallel.stencil_dist import build_halo_stencil
-
-    Ad, _ = build_halo_stencil(4, 4, 2, 2, value_bytes=8)
-    assert Ad.impl == "xla"

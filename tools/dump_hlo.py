@@ -1,13 +1,13 @@
 """`make asm` analog (reference Makefile:26-30 emits per-object assembly
 listings): dump the optimizer's output for the hot solves so kernel-level
-changes can be inspected without a chip.
+changes can be inspected without a GPU.
 
 Writes, per format in {dia, stencil}:
   build/asm/cg_<fmt>_lowered.txt    — StableHLO as traced (pre-optimization)
   build/asm/cg_<fmt>_optimized.txt  — the backend's optimized HLO
 
-On the TPU backend the optimized text includes the fused modules around
-the Pallas custom-calls; on CPU it is the portable equivalent. Usage:
+On the GPU the optimized text shows XLA's fused kernels; on the CPU it
+is the portable equivalent. Usage:
     python tools/dump_hlo.py [outdir]   (or `make asm`)
 """
 
@@ -25,10 +25,10 @@ def main(outdir: str = "build/asm") -> int:
     import jax
     import jax.numpy as jnp
 
-    from sparsebench_tpu.config import DTypePolicy
-    from sparsebench_tpu.formats.dia import DiaMatrix
-    from sparsebench_tpu.formats.stencil import StencilOperator
-    from sparsebench_tpu.solvers.cg import cg_loop, init_vectors
+    from sparsebench.config import DTypePolicy
+    from sparsebench.formats.dia import DiaMatrix
+    from sparsebench.formats.stencil import StencilOperator
+    from sparsebench.solvers.cg import cg_loop, init_vectors
 
     os.makedirs(outdir, exist_ok=True)
     policy = DTypePolicy.from_names("f32", "i32")

@@ -2,7 +2,7 @@
 
 BASELINE.md row 2's bar ("distributed residual histories match the C
 reference to 1e-10 on the hpcg.par problem") existed only as a manual
-round-1 README claim (VERDICT r3 missing #1). This script turns it into
+round-1 README claim. This script turns it into
 evidence, once per round:
 
   1. builds the reference from /root/reference with the residual prints
@@ -11,12 +11,12 @@ evidence, once per round:
   2. runs `sparseBench-CRS-GCC -f hpcg.par` (200^3 27-pt stencil, 150
      iterations, eps 0 — /root/reference/hpcg.par:7-12, residual prints
      src/CGSolver.c:102,119 every printFreq=15);
-  3. runs our CG in f64 on the CPU backend (the v5e chip has no native
-     f64) on the identical generated problem, matrix-free stencil
+  3. runs our CG in f64 on the CPU backend on the identical generated
+     problem, matrix-free stencil
      operator (values are the same 27/-1 integers — exactly
      representable, so the two sides compute the same operator);
   4. records the mutual relative deltas at every printed iteration plus
-     the exact-solution diff into PARITY_r<NN>.json next to BENCH.
+     the exact-solution diff into the output JSON.
 
 What the artifact shows (measured, r4): per-iteration relative deltas
 plateau at a CONSTANT after ~iteration 15 and that constant scales
@@ -32,7 +32,7 @@ Iterations where the residual has hit machine zero relative to the
 initial (ref/ref0 <= 1e-13) are recorded but excluded from the max —
 there the histories are rounding noise on both sides by definition.
 
-Round 5 closes the argument with a MEASUREMENT (VERDICT r4 next #3):
+Round 5 closes the argument with a MEASUREMENT:
 every leg also runs ``run_oracle`` — the same recurrence in
 np.longdouble (80-bit extended, eps 1.1e-19) — and records per printed
 iteration |C - oracle| and |ours - oracle|. The r4 inference ("the
@@ -102,9 +102,9 @@ def run_ours(nx: int, ny: int, nz: int, itermax: int) -> dict:
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 
-    from sparsebench_tpu.config import DTypePolicy
-    from sparsebench_tpu.formats.stencil import StencilOperator
-    from sparsebench_tpu.solvers.cg import init_vectors, solve_cg
+    from sparsebench.config import DTypePolicy
+    from sparsebench.formats.stencil import StencilOperator
+    from sparsebench.solvers.cg import init_vectors, solve_cg
 
     policy = DTypePolicy.from_names("f64", "i32")
     t0 = time.perf_counter()
@@ -125,7 +125,7 @@ def run_ours(nx: int, ny: int, nz: int, itermax: int) -> dict:
 
 def run_oracle(nx: int, ny: int, nz: int, itermax: int) -> dict:
     """High-precision CG oracle in np.longdouble (x86 80-bit extended,
-    eps ~1.1e-19 — ~2000x tighter than f64), VERDICT r4 next #3.
+    eps ~1.1e-19 — ~2000x tighter than f64).
 
     Runs the reference's exact recurrence (src/CGSolver.c:94-129,
     including the k==1 reuse of rtrans0 so hist[1] == hist[0]) on the
@@ -295,7 +295,7 @@ def main() -> int:
     payload = {
         "reference": "/root/reference @ sparseBench-CRS-GCC, serial, "
                      "-O3, %.15E residual prints (tools/refbuild.py)",
-        "ours": "sparsebench_tpu solve_cg, f64, CPU backend (XLA), "
+        "ours": "sparsebench solve_cg, f64, CPU backend (XLA), "
                 "matrix-free StencilOperator",
         "oracle": "CG in np.longdouble (80-bit extended, eps 1.1e-19), "
                   "host numpy, identical recurrence and operator — "
